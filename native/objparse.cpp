@@ -1,6 +1,6 @@
 // Fast Wavefront OBJ triangle parser (native host component).
 //
-// TPU-framework equivalent of the reference's fscanf-based loader
+// Equivalent of the reference's fscanf-based loader
 // (CLOBJloader::LoadTriangles, CLOBJloader.cpp:16-129), written fresh:
 // single-pass buffered parse, fan triangulation, v/vt/vn index forms
 // (including negative indices), flat SoA float output ready to wrap as

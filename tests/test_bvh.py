@@ -7,9 +7,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import mini_opencl_raytracer_tpu as mrt
-from mini_opencl_raytracer_tpu.config import BVHConfig
-from mini_opencl_raytracer_tpu.ops import bvh as bvh_mod
+import mini_opencl_raytracer as mrt
+from mini_opencl_raytracer.config import BVHConfig
+from mini_opencl_raytracer.ops import bvh as bvh_mod
 
 
 @pytest.fixture(scope="module")

@@ -7,8 +7,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import mini_opencl_raytracer_tpu as mrt
-from mini_opencl_raytracer_tpu import grad as gradlib
+import mini_opencl_raytracer as mrt
+from mini_opencl_raytracer import grad as gradlib
 
 # Small, single-bounce, no-jitter-sensitive losses keep FD well-behaved.
 CFG = mrt.RenderConfig(width=24, height=24, bounces=1,
@@ -171,14 +171,15 @@ def test_silhouette_vertex_grad_fd():
 
 
 def test_soft_edge_mega_matches_bruteforce():
-    """The soft-coverage path must agree across backends too."""
+    """The soft-coverage path must agree across backends too (the LBVH
+    backend against the dense sweep)."""
     scene = _floating_triangle_scene()
     cam = mrt.Camera.default()
     kw = dict(width=24, height=24, bounces=2, soft_edge_sigma=0.05)
     img_b = np.asarray(mrt.render_sample(
         scene, cam, mrt.RenderConfig(backend="bruteforce", **kw)))
     img_m = np.asarray(mrt.render_sample(
-        scene, cam, mrt.RenderConfig(backend="mega", **kw)))
+        scene, cam, mrt.RenderConfig(backend="bvh", **kw)))
     np.testing.assert_allclose(img_m, img_b, atol=2e-5, rtol=1e-4)
 
 
@@ -225,3 +226,31 @@ def test_material_optimization_converges(cornell):
         kd = kd - lr * mh / (np.sqrt(vh) + eps)
     l1 = float(loss(jnp.asarray(kd, jnp.float32)))
     assert l1 < l0 * 0.2
+
+
+@pytest.mark.parametrize("lobe", ["safe_sqrt", "blinn", "ggx"])
+def test_grads_finite_at_lobe_pole(lobe):
+    """A half-vector sampled at its lobe's pole has sin(theta_h) = 0;
+    a plain sqrt's infinite slope there made the roughness gradient NaN
+    for every material (seen at 1080p x 9 bounces)."""
+    from mini_opencl_raytracer.ops import brdf
+    from mini_opencl_raytracer.ops.linalg import safe_sqrt
+    if lobe == "safe_sqrt":
+        g = jax.grad(lambda x: jnp.sum(safe_sqrt(x)))(
+            jnp.array([0.0, -1.0, 4.0]))
+        np.testing.assert_allclose(np.asarray(g), [0.0, 0.0, 0.25])
+        return
+    n = jnp.array([[0.0, 0.0, 1.0]])
+    wo = jnp.array([[0.0, 0.6, 0.8]])
+    ks = jnp.full((1, 3), 0.5)
+    # u2 = 1 puts the Blinn sample at the pole, u2 = 0 the GGX one.
+    u1, u2 = jnp.array([0.3]), jnp.array([1.0 if lobe == "blinn" else 0.0])
+    sample = brdf.sample_specular if lobe == "blinn" else \
+        brdf.sample_specular_ggx
+
+    def f(ns):
+        s = sample(wo, n, ks, ns, u1, u2)
+        return jnp.sum(s.f) + jnp.sum(s.pdf) + jnp.sum(s.wi)
+
+    g = jax.grad(f)(jnp.array([50.0]))
+    assert np.isfinite(np.asarray(g)).all()

@@ -5,9 +5,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import mini_opencl_raytracer_tpu as mrt
-from mini_opencl_raytracer_tpu.ops.intersect import ray_triangle
-from mini_opencl_raytracer_tpu.ops.bvh import morton3d, expand_bits_10
+import mini_opencl_raytracer as mrt
+from mini_opencl_raytracer.ops.intersect import ray_triangle
+from mini_opencl_raytracer.ops.bvh import morton3d, expand_bits_10
 
 
 def _tri():

@@ -6,7 +6,7 @@ import os
 import numpy as np
 import pytest
 
-import mini_opencl_raytracer_tpu as mrt
+import mini_opencl_raytracer as mrt
 
 
 @pytest.fixture(scope="module")
@@ -81,7 +81,7 @@ def test_native_parser_matches_python(cornell_files):
     parser (skips without a compiler). Native material slots are in
     usemtl-appearance order and must be remapped to MTL-declaration
     order by name — exactly what load_obj's integration does."""
-    from mini_opencl_raytracer_tpu import native
+    from mini_opencl_raytracer import native
     if not native.available():
         import pytest
         pytest.skip("native library unavailable")
@@ -104,8 +104,8 @@ def test_native_parser_matches_python(cornell_files):
 def test_load_obj_native_path_matches_python(cornell_files):
     """load_obj must actually use the native parser when available and
     produce buffers identical to the pure-Python path."""
-    from mini_opencl_raytracer_tpu import native
-    from mini_opencl_raytracer_tpu.models import objloader
+    from mini_opencl_raytracer import native
+    from mini_opencl_raytracer.models import objloader
     if not native.available():
         import pytest
         pytest.skip("native library unavailable")
@@ -127,7 +127,7 @@ def test_load_obj_native_path_matches_python(cornell_files):
 def test_native_pre_usemtl_faces_get_material_zero(tmp_path):
     """Faces before any usemtl line map to material 0 through the native
     path (the C++ parser emits slot -1 for them)."""
-    from mini_opencl_raytracer_tpu import native
+    from mini_opencl_raytracer import native
     if not native.available():
         import pytest
         pytest.skip("native library unavailable")

@@ -6,7 +6,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import mini_opencl_raytracer_tpu as mrt
+import mini_opencl_raytracer as mrt
 
 
 CFG = mrt.RenderConfig(width=64, height=64, bounces=3, backend="bruteforce")
@@ -111,7 +111,7 @@ def test_sorted_wavefront_identical():
     noise only: the sorted path runs the (already coherent) primary
     bounce outside the scan, so the same math compiles as a separate
     XLA program."""
-    import mini_opencl_raytracer_tpu.models.procedural as proc
+    import mini_opencl_raytracer.models.procedural as proc
     scene = proc.bunny_scene(target_tris=4000)  # small but > sort threshold
     cam = mrt.Camera.default()
     kw = dict(width=16, height=16, bounces=2, backend="bvh")
@@ -125,7 +125,7 @@ def test_sorted_wavefront_identical():
 def test_swizzle_roundtrip():
     """Tile swizzle and unswizzle must be exact inverses: tracing pixel
     ids through the swizzled pipeline reproduces the identity image."""
-    from mini_opencl_raytracer_tpu.render import (_swizzled_ids,
+    from mini_opencl_raytracer.render import (_swizzled_ids,
                                                   _unswizzle_image)
     cfg = mrt.RenderConfig(width=48, height=32)
     ids = _swizzled_ids(cfg)
@@ -140,7 +140,7 @@ def test_swizzle_roundtrip():
 
 
 def test_swizzle_fallback_odd_resolution():
-    from mini_opencl_raytracer_tpu.render import _swizzled_ids
+    from mini_opencl_raytracer.render import _swizzled_ids
     assert _swizzled_ids(mrt.RenderConfig(width=50, height=30)) is None
     img = mrt.render_sample(
         mrt.cornell_scene(), mrt.Camera.default(),

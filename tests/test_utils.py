@@ -9,12 +9,12 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import mini_opencl_raytracer_tpu as mrt
-from mini_opencl_raytracer_tpu.utils import checkpoint as ckpt
-from mini_opencl_raytracer_tpu.utils.image import (to_uint8, write_npy,
+import mini_opencl_raytracer as mrt
+from mini_opencl_raytracer.utils import checkpoint as ckpt
+from mini_opencl_raytracer.utils.image import (to_uint8, write_npy,
                                                    write_pfm, write_png,
                                                    _write_png_pure)
-from mini_opencl_raytracer_tpu.utils.metrics import render_metrics
+from mini_opencl_raytracer.utils.metrics import render_metrics
 
 
 def test_to_uint8_clips():
@@ -86,7 +86,7 @@ def test_cli_render_and_resume(tmp_path):
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     out = str(tmp_path / "img.png")
     ck = str(tmp_path / "st.npz")
-    base = [sys.executable, "-m", "mini_opencl_raytracer_tpu.cli", "render",
+    base = [sys.executable, "-m", "mini_opencl_raytracer.cli", "render",
             "--width", "32", "--height", "32", "--bounces", "2",
             "--backend", "bruteforce", "--frames", "2", "--out", out,
             "--checkpoint", ck]
@@ -105,15 +105,15 @@ def test_decode_error_classes():
     """Typed device-error layer (utils/errors.py): common runtime
     failures map to actionable typed exceptions; unknown ones pass
     through."""
-    from mini_opencl_raytracer_tpu.utils import errors
+    from mini_opencl_raytracer.utils import errors
 
     e = errors.decode_error(RuntimeError(
         "RESOURCE_EXHAUSTED: Allocation (size=68719476736) would exceed "
         "memory (size=17179869184)"))
     assert isinstance(e, errors.DeviceOutOfMemoryError)
     e = errors.decode_error(RuntimeError(
-        "Mosaic failed to compile TPU kernel: infer-vector-layout"))
-    assert isinstance(e, errors.KernelCompileError)
+        "Unable to initialize backend 'cuda': no supported devices found"))
+    assert isinstance(e, errors.NoAcceleratorError)
     assert errors.decode_error(ValueError("plain bug")) is None
     with pytest.raises(errors.DeviceOutOfMemoryError):
         errors.run_decoded(lambda: (_ for _ in ()).throw(
@@ -123,7 +123,7 @@ def test_decode_error_classes():
 def test_bounce_occupancy():
     """Per-bounce live-ray fractions: finite, in [0,1], monotone
     non-increasing (paths only die, kernel_bvh.cl:371-372)."""
-    from mini_opencl_raytracer_tpu.utils.metrics import bounce_occupancy
+    from mini_opencl_raytracer.utils.metrics import bounce_occupancy
     scene = mrt.cornell_scene()
     cfg = mrt.RenderConfig(width=16, height=16, bounces=3,
                            backend="bruteforce", ray_chunk=256)
@@ -138,7 +138,7 @@ def test_time_scan_slope_basic():
     frame with real work (for a ~ns frame the slope is legitimately
     noise around zero, so the test frame carries a matmul)."""
     import jax.numpy as jnp
-    from mini_opencl_raytracer_tpu.utils.metrics import (scan_frames,
+    from mini_opencl_raytracer.utils.metrics import (scan_frames,
                                                          time_scan_slope)
 
     def heavy(fr, data):
